@@ -1,4 +1,5 @@
-"""imageencoder_tpu — TPU-native block-transform image & video codec.
+"""imageencoder_tpu — JAX block-transform image & video codec (GPU device
+path, C++ host runtime).
 
 Public API:
     encode_image / decode_image   still images (reference wire format)

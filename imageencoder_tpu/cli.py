@@ -32,7 +32,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", choices=["numpy", "fast", "jax"],
                     default="numpy",
                     help="numpy = bit-parity float64; fast = host float32 "
-                         "BLAS (+-1 on ~0.003%% of pixels); jax = TPU path")
+                         "BLAS (+-1 on ~0.003%% of pixels); jax = device "
+                         "(GPU) path")
     ap.add_argument("--no-huffman", action="store_true",
                     help="disable the whole-stream Huffman pass")
     ap.add_argument("--ref-mode", choices=["raw", "recon"], default="raw",
@@ -67,6 +68,10 @@ def main(argv=None) -> int:
         print(f"Error in settings! {c.error}", file=sys.stderr)
         return 3
 
+    if args.backend == "jax":
+        from .utils.jaxcache import configure_compile_cache
+
+        configure_compile_cache()
     Logger.create(c.get("logfile"))
     use_huffman = not args.no_huffman
     try:

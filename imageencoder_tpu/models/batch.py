@@ -28,67 +28,13 @@ from ..utils.quant import QuantMatrix
 from .headers import write_image_header
 from .image import BLOCK_SIZE
 
+GAP_RECORDS = 2  # zero pseudo-records that hold each image's header
 
-def _batch_encode_fused(imgs, quant, hdr_bits, block_size, use_rle, norm,
-                        interpret=False):
-    """TPU batch encode on the round-3 fused front end.
 
-    The batch is stacked vertically into one tall image (row-major block
-    order is then image-major — the sharding.py stacking trick), run
-    through ONE encode_locals pass, and the per-image gap/pad
-    pseudo-records are spliced in at the LOCALS level: a pseudo-record is
-    just a register-file column of zero words with a chosen bit length
-    (zero bits content; the host ORs the real header bytes in afterwards).
-    Same (words, seg_word_start, seg_bits) contract as the fields path.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ..ops.pallas_encode import (encode_locals, frontend_lw,
-                                     frontend_rows, pad_chunk_for)
-    from ..ops.pallas_pack import pack_locals_pallas
-
-    bsz, h, w = imgs.shape
-    b = block_size
-    n = (h // b) * (w // b)
-    lw = frontend_lw(b, norm)
-    rows_pad = frontend_rows(b, norm)
-    cap = lw * 32
-
-    locs, _ = encode_locals(imgs.reshape(bsz * h, w), quant, b, use_rle,
-                            norm, interpret=interpret)
-    recs = locs[:, :bsz * n].reshape(rows_pad, bsz, n)
-
-    # Per-image bit totals -> gap (header hole) and word-align pad lens.
-    lens_row = jax.lax.bitcast_convert_type(recs[lw], jnp.int32)  # [B, N]
-    rec_bits = jnp.sum(lens_row, axis=1)                          # [B]
-    seg_bits = rec_bits + hdr_bits
-    seg_words = (seg_bits + 31) // 32
-    pad_bits = seg_words * 32 - seg_bits                          # <= 31
-
-    n_gap = 2
-    gap_lens = jnp.clip(hdr_bits - cap * jnp.arange(n_gap), 0,
-                        cap).astype(jnp.int32)                    # [2]
-    gap = jnp.zeros((rows_pad, bsz, n_gap), jnp.uint32)
-    gap = gap.at[lw].set(jnp.broadcast_to(
-        gap_lens[None, :].astype(jnp.uint32), (bsz, n_gap)))
-    pad = jnp.zeros((rows_pad, bsz, 1), jnp.uint32)
-    pad = pad.at[lw].set(pad_bits[:, None].astype(jnp.uint32))
-
-    flat = jnp.concatenate([gap, recs, pad], axis=2)
-    flat = flat.reshape(rows_pad, bsz * (n + n_gap + 1))
-    total = flat.shape[1]
-    pc = pad_chunk_for(total)
-    n_pad2 = -(-total // pc) * pc
-    if n_pad2 > total:
-        flat = jnp.pad(flat, ((0, 0), (0, n_pad2 - total)))
-
-    # Static bound: n records + a <=2*cap-bit header hole + pad, per image.
-    n_words = int(bsz) * ((n * cap) // 32 + 2 * lw + 3)
-    words, _ = pack_locals_pallas(flat, lw, jnp.int32(0), n_words,
-                                  interpret=interpret)
-    seg_word_start = jnp.cumsum(seg_words) - seg_words
-    return words, seg_word_start, seg_bits
+def header_hole_bits(block_size: int) -> int:
+    """Largest header the batch pack can hold: GAP_RECORDS records of
+    B*B+2 fields, each split16 field at most 16 bits wide."""
+    return GAP_RECORDS * (block_size * block_size + 2) * 16
 
 
 @lru_cache(maxsize=None)
@@ -104,10 +50,6 @@ def _make_batch_encode(block_size: int, use_rle: bool, norm: str):
         n = (h // block_size) * (w // block_size)
         k = block_size * block_size
 
-        if jax.default_backend() == "tpu":
-            return _batch_encode_fused(imgs, quant, hdr_bits, block_size,
-                                       use_rle, norm)
-
         def one(img):
             czz = transform_quantize(img, quant, jnp.asarray(dct_m),
                                      block_size)
@@ -115,12 +57,12 @@ def _make_batch_encode(block_size: int, use_rle: bool, norm: str):
 
         vals, nbits = jax.vmap(one)(imgs)  # [B, N, K+2]
 
-        # Segmented pack expressed in the DENSE record layout (so the fast
-        # Pallas packer applies): per image, a zero-valued GAP record of
-        # hdr_bits leads the region (the host ORs the shared header bytes
-        # into it) and a zero-valued PAD record tail-aligns the region to a
-        # word boundary.  Pseudo-record widths are split into <=16-bit
-        # fields (the packer's field-width contract).
+        # Segmented pack expressed in the DENSE record layout (one plain
+        # cumsum pack for the whole batch): per image, a zero-valued GAP
+        # record of hdr_bits leads the region (the host ORs the shared
+        # header bytes into it) and a zero-valued PAD record tail-aligns
+        # the region to a word boundary.  Pseudo-record widths are split
+        # into <=16-bit fields (the packer's field-width contract).
         f = k + 2
         rec_bits = jnp.sum(nbits, axis=(1, 2))  # [B]
         seg_bits = rec_bits + hdr_bits
@@ -132,18 +74,18 @@ def _make_batch_encode(block_size: int, use_rle: bool, norm: str):
             rem = total[:, None] - 16 * jnp.arange(nf)[None, :]
             return jnp.clip(rem, 0, 16).astype(jnp.int32)
 
-        # 2 gap records always hold a header: hdr <= 16k+37 < 2*(16k+32).
-        gap_n = split16(jnp.full((bsz,), hdr_bits), 2 * f).reshape(bsz, 2, f)
+        gap_n = split16(jnp.full((bsz,), hdr_bits),
+                        GAP_RECORDS * f).reshape(bsz, GAP_RECORDS, f)
         pad_bits = seg_words * 32 - seg_bits  # <= 31 bits, 1 record
         pad_n = split16(pad_bits, f)[:, None, :]
-        zero2 = jnp.zeros((bsz, 2, f), jnp.int32)
+        zero2 = jnp.zeros((bsz, GAP_RECORDS, f), jnp.int32)
         zero1 = jnp.zeros((bsz, 1, f), jnp.int32)
 
         flat_vals = jnp.concatenate(
-            [zero2, vals, zero1], axis=1).reshape(bsz * (n + 3), f)
+            [zero2, vals, zero1], axis=1).reshape(-1, f)
         flat_nbits = jnp.concatenate(
-            [gap_n, nbits, pad_n], axis=1).reshape(bsz * (n + 3), f)
-        n_words = int(bsz) * packed_words_bound(n + 3, f)
+            [gap_n, nbits, pad_n], axis=1).reshape(-1, f)
+        n_words = int(bsz) * packed_words_bound(n + GAP_RECORDS + 1, f)
         words, _ = pack_blocks_device(flat_vals, flat_nbits, jnp.int32(0),
                                       n_words)
         return words, seg_word_start, seg_bits
@@ -170,13 +112,11 @@ def encode_image_batch(imgs, quant: QuantMatrix, use_rle: bool = True,
     header = writer.getvalue()
     hdr_bits = writer.position
 
-    from ..ops.pallas_encode import frontend_lw
-
-    # The fused TPU path models the header hole as 2 zero pseudo-records
-    # of <= lw*32 bits each; every legal header fits (image header is
+    # The header hole is GAP_RECORDS zero pseudo-records of B*B+2 fields
+    # of <= 16 bits each; every legal header fits (an image header is
     # bounded by 37 + B*B*16 bits), but check rather than assume — a bare
     # assert would vanish under `python -O` and silently truncate headers.
-    hdr_cap = 2 * 32 * frontend_lw(block_size, norm)
+    hdr_cap = header_hole_bits(block_size)
     if hdr_bits > hdr_cap:
         raise ValueError(
             f"image header of {hdr_bits} bits exceeds the batch packer's "
@@ -217,10 +157,9 @@ def encode_image_stream(imgs, quant: QuantMatrix, use_rle: bool = True,
 
     JAX dispatch is asynchronous, so keeping ``depth`` encodes in flight
     overlaps image i+1's H2D + device compute with image i's host Huffman
-    build and D2H — the sustained-throughput serving mode (single-image
-    latency is bounded by the link; a stream is bounded by max(device,
-    host) stage time).  Streams are byte-identical to per-image
-    encode_image(backend="jax").
+    build and D2H — the sustained-throughput serving mode (a stream is
+    bounded by max(device, host) stage time).  Streams are byte-identical
+    to per-image encode_image(backend="jax").
     """
     import jax.numpy as jnp
 

@@ -26,7 +26,7 @@ Reference-parity reconstruction quirks replicated deliberately:
   * motion vectors keep unclamped offsets; window fetches clamp
     (ImageBase.cpp:253-254).
 
-TPU-native formulation: each frame's blocks are one batched transform; the
+Device formulation: each frame's blocks are one batched transform; the
 motion search runs gather-free over translation SAD maps
 (ops/video_pipeline.sad_motion_search; host fallback in ops/motion.py); in
 raw-reference mode the whole video encodes in one fused device computation
@@ -233,7 +233,7 @@ def encode_video(data: bytes, width: int, height: int, quant: QuantMatrix,
         bit-exactly by experiment (a video where frame2 == frame1 encodes
         frame2 with an all-zero residual, proving the encoder's reference
         was the raw frame1) — and it makes every frame's encode
-        independent: no sequential carry, the whole GOP batches on TPU.
+        independent: no sequential carry, the whole GOP batches on the device.
       * "recon": P-frames reference the previous frame's reconstruction
         (prediction + dequantized residual), the semantics written in the
         shipped *source* (Frame.cpp:210-242 overwrites the frame buffer).

@@ -2,7 +2,7 @@
 
 The reference writes streams one bit at a time through BitStreamWriter::put
 (BitStream.cpp:61-77, MSB-first within each field and within each byte).
-The TPU-native redesign replaces the serial loop with a two-phase
+The data-parallel redesign replaces the serial loop with a two-phase
 "measure -> prefix-sum -> scatter" assembler:
 
   1. every field is a (value, nbits) pair; an exclusive cumsum of nbits

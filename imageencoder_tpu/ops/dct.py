@@ -1,11 +1,11 @@
-"""Batched 2-D DCT-II / DCT-III as MXU matmuls, plus the quantization step.
+"""Batched 2-D DCT-II / DCT-III as matrix products, plus the quantization step.
 
 The reference computes a naive O(n^4) 2-D DCT per block in float64
 (algo.cpp:309-363) with scale factors C(0)=0.5, C(u)=1/sqrt(2) hard-coded
 "voor size=4" (algo.cpp:294-297).  For N=4 that is exactly the orthonormal
-DCT-II, so the TPU-native formulation is a pair of batched matmuls:
+DCT-II, so the device formulation is a pair of batched matrix products:
 
-    forward:  Y = D @ X @ D^T        (one einsum over [N, B, B] tiles -> MXU)
+    forward:  Y = D @ X @ D^T        (one einsum over [N, B, B] tiles)
     inverse:  X = D^T @ Y @ D
 
 with D[u, i] = C(u) * cos((2i+1) * u * pi / (2B)).
@@ -31,8 +31,8 @@ Two precision paths share this module:
     vectorized across all blocks) and take cos from libm via ctypes so the
     weight values match the C++ binary's std::cos bit-for-bit.
 
-  * TPU fast path: float32 batched matmuls on the MXU.  Self-consistent and
-    stream-valid; quantized coefficients may differ from the reference by
+  * device fast path: float32 batched products at Precision.HIGHEST (no
+    reduced-precision matrix units).  Self-consistent and stream-valid; quantized coefficients may differ from the reference by
     +-1 level on ~0.1% of coefficients (f64-noise ties resolving the other
     way), with negligible PSNR effect.  Validated against the exact path.
 """

@@ -22,7 +22,7 @@ verified from source:
 
 The whole search therefore becomes: for each static level, gather 9 * N
 windows from the reference frame, compute SADs as batched reductions, and
-select with masked minimum — data-parallel over N on TPU, no host loop.
+select with masked minimum — data-parallel over N on the device, no host loop.
 """
 
 from __future__ import annotations

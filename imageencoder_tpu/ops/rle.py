@@ -23,7 +23,7 @@ with two reference quirks replicated exactly:
     an intentional(?) lossy corner the decoder zero-fills.
 
 All stats are computed batched over [N, K] zig-zag coefficient tensors with
-integer ops only (exact on TPU), feeding the prefix-sum bit packer.
+integer ops only (exact on any device), feeding the prefix-sum bit packer.
 """
 
 from __future__ import annotations

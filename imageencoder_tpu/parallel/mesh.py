@@ -1,15 +1,18 @@
 """Device-mesh construction for multi-chip codec sharding.
 
 The reference's only parallelism is OpenMP threads over blocks inside one
-process (SURVEY §2 #22).  The TPU-native design replaces it with a 2-D
+process (SURVEY §2 #22).  The device design replaces it with a 2-D
 `jax.sharding.Mesh`:
 
   * axis "frame": data parallelism over frames / GOPs (every GOP starts with
     an I-frame, VideoBase.hpp:32, so GOPs are fully independent — the natural
-    DP unit; rides DCN across hosts, ICI within a slice),
-  * axis "block": spatial parallelism over block columns within one frame
+    DP unit),
+  * axis "block": spatial parallelism over block rows within one frame
     (the reference's OpenMP-over-blocks analogue; needs merange-wide halo
-    exchange for motion search — ring ppermute over ICI).
+    exchange for motion search — neighbour ppermutes).
+
+The mesh follows the algorithm only: devices are taken in order, since the
+cards of one host reach each other at the same rate.
 
 Still images use the same mesh with frame=1 (or fold both axes into blocks).
 """

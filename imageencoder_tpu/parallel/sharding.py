@@ -30,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.dct import dct_matrix
-from ..ops.pipeline import fields_from_coeffs, transform_quantize
+from ..ops.pipeline import (block_transform, fields_from_coeffs,
+                            transform_quantize)
 
 
 def make_sharded_encode_step(mesh, block_size: int = 4, use_rle: bool = True,
@@ -61,7 +62,7 @@ def make_sharded_encode_step(mesh, block_size: int = 4, use_rle: bool = True,
         n_loc = by * bx
         # One transform implementation everywhere: stacking the local
         # frames vertically preserves every block row, so the whole shard
-        # is a single transform_quantize call (Pallas kernel on TPU).
+        # is a single transform_quantize call.
         coeffs_zz = transform_quantize(
             frames.reshape(f_loc * h_loc, w), quant, jnp.asarray(dct_m), b)
         vals, nbits = fields_from_coeffs(coeffs_zz, use_rle)
@@ -110,8 +111,8 @@ def make_sharded_encode_packed(mesh, block_size: int = 4, use_rle: bool = True,
     replacement for field-tensor assembly (reference seam: the parallel
     compute / sequential stream split, ImageEncoder.cpp:135-146).
 
-    Each (frame, stripe) shard packs its records on device (the Pallas /
-    scatter packer at bit offset 0), all_gathers the per-segment bit totals
+    Each (frame, stripe) shard packs its records on device (the scatter
+    packer at bit offset 0), all_gathers the per-segment bit totals
     to learn its FINAL base offset in the stream, funnel-shifts its words
     to that bit phase, and psums a byte histogram of its fully-covered
     bytes — the distributed Huffman statistics stage (serial analogue:
@@ -153,45 +154,22 @@ def make_sharded_encode_packed(mesh, block_size: int = 4, use_rle: bool = True,
         k2 = b * b + 2
         lw = local_words(k2)
         wloc = n_loc * lw + 2
-        if jax.default_backend() == "tpu":
-            # Round-3 fused Pallas front end (ops/pallas_encode): transform
-            # + zigzag + RLE stats + per-record register files in one VMEM
-            # pass, then the merge-only packer — the same 5x transform-side
-            # win the single-chip path got, now per shard.
-            from ..ops.pallas_encode import encode_locals, frontend_lw
-            from ..ops.pallas_pack import pack_locals_pallas
+        # One transform implementation everywhere: stacking the local
+        # frames vertically preserves every block row, so the whole shard
+        # is a single transform_quantize call.
+        coeffs_zz = transform_quantize(
+            frames.reshape(f_loc * h_loc, w), quant, jnp.asarray(dct_m), b)
+        vals, nbits = fields_from_coeffs(coeffs_zz, use_rle)
+        vals = vals.reshape(f_loc, n_loc, k2)
+        nbits = nbits.reshape(f_loc, n_loc, k2)
 
-            flw = frontend_lw(b, norm)
-            packed, bits_l = [], []
-            for i in range(f_loc):
-                locals_, _ = encode_locals(frames[i], quant, b, use_rle,
-                                           norm)
-                wd, total = pack_locals_pallas(locals_, flw, jnp.int32(0),
-                                               wloc)
-                packed.append(wd)
-                bits_l.append(total)
-            words = jnp.stack(packed)                  # [f_loc, wloc]
-            bits_local = jnp.stack(bits_l).astype(jnp.int32)
-        else:
-            # One transform implementation everywhere: stacking the local
-            # frames vertically preserves every block row, so the whole
-            # shard is a single transform_quantize call.
-            coeffs_zz = transform_quantize(
-                frames.reshape(f_loc * h_loc, w), quant, jnp.asarray(dct_m),
-                b)
-            vals, nbits = fields_from_coeffs(coeffs_zz, use_rle)
-            vals = vals.reshape(f_loc, n_loc, k2)
-            nbits = nbits.reshape(f_loc, n_loc, k2)
-
-            # Per-local-frame device pack at bit 0.
-            packed = []
-            for i in range(f_loc):
-                wd, _ = pack_blocks_device(vals[i], nbits[i],
-                                           jnp.int32(0), wloc)
-                packed.append(wd)
-            words = jnp.stack(packed)                  # [f_loc, wloc]
-            bits_local = jnp.sum(nbits, axis=(1, 2),
-                                 dtype=jnp.int32)      # [f_loc]
+        # Per-local-frame device pack at bit 0.
+        packed = []
+        for i in range(f_loc):
+            wd, _ = pack_blocks_device(vals[i], nbits[i], jnp.int32(0), wloc)
+            packed.append(wd)
+        words = jnp.stack(packed)                      # [f_loc, wloc]
+        bits_local = jnp.sum(nbits, axis=(1, 2), dtype=jnp.int32)  # [f_loc]
 
         # Full [F, S] bit matrix via two all_gathers (a few bytes each).
         g1 = jax.lax.all_gather(bits_local, "block")   # [S, f_loc]
@@ -689,9 +667,7 @@ def make_sharded_image_decode(mesh, h: int, w: int, block_size: int = 4,
         rows = coeffs.shape[0] // bx
         d = jnp.asarray(dct_m)
         y = coeffs.astype(jnp.float32) * quant.astype(jnp.float32)
-        x = jnp.einsum("ui,nuv,vj->nij", d, y, d,
-                       precision=jax.lax.Precision.HIGHEST) \
-            + jnp.float32(128.0)
+        x = block_transform(y, d, inverse=True) + jnp.float32(128.0)
         px = jnp.floor(jnp.clip(x, 0.0, 255.0)).astype(jnp.uint8)
         return px.reshape(rows, bx, b, b).swapaxes(1, 2).reshape(rows * b, w)
 
@@ -710,8 +686,7 @@ def decode_image_sharded(data: bytes, mesh, norm: str = "reference",
     stages the bit-serial wire format forces) feed the sharded device
     inverse half (make_sharded_image_decode).  Same f32 rounding-tie
     class as decode_image(backend="jax") — and bit-identical to it,
-    since the per-block einsum contraction is unchanged by stripe
-    batching.
+    since the per-block transform is unchanged by stripe batching.
     """
     import jax.numpy as jnp
 

@@ -1,6 +1,6 @@
 """ctypes loader for the native C++ runtime (serial hot loops).
 
-The TPU compute path is JAX/Pallas; the host-side serial stages — decode
+The device compute path is JAX; the host-side serial stages — decode
 offset recovery and the Huffman FSM walk — are implemented in C++
 (runtime/native/runtime.cpp) and loaded here.  Every entry point has a pure
 numpy/Python fallback in the calling module, so the framework degrades

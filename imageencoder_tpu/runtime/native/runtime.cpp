@@ -1,5 +1,5 @@
-// Native host runtime for the TPU codec: the three inherently-serial hot
-// loops that sit outside the JAX/Pallas compute path.
+// Native host runtime for the codec: the inherently-serial hot loops that
+// sit outside the JAX device compute path.
 //
 //   * walk_offsets       — decode-side offset recovery over variable-length
 //                          block records (the serial chain of SURVEY §3.2;

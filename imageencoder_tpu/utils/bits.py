@@ -18,7 +18,7 @@ These replicate the semantics of the reference's bit utilities
     (reference: Block.cpp:152).
 
 Everything here works on numpy arrays *and* jax arrays, using only integer
-compares/adds so results are exact on TPU (no float log tricks).
+compares/adds so results are exact on any device (no float log tricks).
 """
 
 from __future__ import annotations

@@ -108,3 +108,110 @@ def device_trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+GEMM_KEY = "<cublas gemm>"
+
+
+def _kernel_op_names(hlo_texts) -> dict:
+    """{kernel name: op_name metadata} from optimized HLO module text.
+
+    XLA names a fusion's GPU kernel after the fusion instruction with '.'
+    and '-' replaced by '_'; a fusion without its own scoped op_name takes
+    the first one in the computation it calls.  Custom calls that launch a
+    named kernel (Pallas calls) are also keyed by every identifier in
+    their backend config, which holds the kernel's name.  cuBLAS kernels
+    carry cuBLAS's own names; when every cuBLAS call of the modules has
+    the same op_name, GEMM_KEY maps to it.
+    """
+    import re
+
+    comp_ops, instrs, gemm_ops = {}, [], set()
+    comp = None
+    for line in "\n".join(hlo_texts).splitlines():
+        m = re.match(r"^(?:ENTRY )?%([\w.\-]+) \(", line)
+        if m:
+            comp = m.group(1)
+            continue
+        m = re.match(r"^\s*(?:ROOT )?%([\w.\-]+) = (.*)$", line)
+        if not m:
+            continue
+        op = re.search(r'op_name="([^"]*/[^"]*)"', line)
+        if op and comp is not None:
+            comp_ops.setdefault(comp, op.group(1))
+        calls = re.search(r"calls=%([\w.\-]+)", line)
+        cfg = line.split("backend_config=", 1)[1] \
+            if "custom-call(" in line and "backend_config=" in line else ""
+        if 'custom_call_target="__cublas' in line and op:
+            gemm_ops.add(op.group(1))
+        instrs.append((m.group(1), op.group(1) if op else None,
+                       calls.group(1) if calls else None,
+                       re.findall(r"[A-Za-z_]\w+", cfg)))
+    out = {}
+    for name, op, calls, quoted in instrs:
+        op = op or comp_ops.get(calls)
+        if op is None:
+            continue
+        out.setdefault(re.sub(r"[.\-]", "_", name), op)
+        for q in quoted:
+            out.setdefault(q, op)
+    if len(gemm_ops) == 1:
+        out[GEMM_KEY] = gemm_ops.pop()
+    return out
+
+
+def attribute_stage_times(events, scopes, kernel_ops):
+    """Sum (kernel name, stats, duration ns) events per scope.
+
+    An event belongs to the first scope in ``scopes`` that is a path
+    segment of its op name: its own ``tf_op`` stat when that holds one,
+    else ``kernel_ops[kernel name]`` (:func:`_kernel_op_names`), and for a
+    cuBLAS GEMM kernel ``kernel_ops[GEMM_KEY]``.  Returns
+    (totals, unattributed): totals maps each scope, plus "_unattributed"
+    and "_device_total", to nanoseconds; unattributed maps the kernel
+    names no scope claimed to their nanoseconds.
+    """
+    def scope_of(op):
+        return next((s for s in scopes
+                     if f"/{s}/" in op or op.endswith(f"/{s}")), None)
+
+    totals = {s: 0 for s in scopes}
+    totals["_unattributed"] = 0
+    totals["_device_total"] = 0
+    unattributed: dict = {}
+    for name, stats, dur in events:
+        op = kernel_ops.get(name)
+        if op is None and "gemm" in name:
+            op = kernel_ops.get(GEMM_KEY)
+        scope = scope_of(stats.get("tf_op", "")) or scope_of(op or "")
+        totals["_device_total"] += dur
+        if scope is None:
+            totals["_unattributed"] += dur
+            unattributed[name] = unattributed.get(name, 0) + dur
+        else:
+            totals[scope] += dur
+    return totals, unattributed
+
+
+def device_stage_times(trace_dir: str, scopes, hlo_texts=()):
+    """Per-scope device time of the newest ``*.xplane.pb`` under
+    ``trace_dir`` (read with ``jax.profiler.ProfileData``): every event on
+    a device plane goes through :func:`attribute_stage_times`, with kernel
+    names resolved through ``hlo_texts`` (optimized HLO modules, as
+    ``jitted.lower(...).compile().as_text()`` prints them)."""
+    import glob
+    import os
+
+    from jax.profiler import ProfileData
+
+    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                             recursive=True), key=os.path.getmtime)
+    if not paths:
+        raise FileNotFoundError(f"no xplane trace under {trace_dir}")
+    events = [(ev.name, {k: str(v) for k, v in ev.stats},
+               int(ev.duration_ns))
+              for plane in ProfileData.from_file(paths[-1]).planes
+              if plane.name.startswith("/device:")
+              for line in plane.lines for ev in line.events]
+    return attribute_stage_times(events, scopes,
+                                 _kernel_op_names(hlo_texts))

@@ -18,7 +18,12 @@ import tempfile
 import numpy as np
 
 REFERENCE_BIN = pathlib.Path("/root/reference/bin")
-FIXTURES = REFERENCE_BIN  # ex*.raw / ex*.conf / matrix*.txt live next to binaries
+# ex*.raw / ex*.conf live next to the reference binaries; the quantization
+# matrices are in the tree (tests/fixtures/README.md says what they are).
+FIXTURES = REFERENCE_BIN
+MATRIX_DIR = pathlib.Path(__file__).resolve().parent / "fixtures"
+QUANT4 = str(MATRIX_DIR / "quant4.txt")
+QUANT8 = str(MATRIX_DIR / "quant8_annexk.txt")
 
 
 class ReferenceCodec:

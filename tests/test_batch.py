@@ -6,8 +6,9 @@ import pytest
 from imageencoder_tpu.models.batch import encode_image_batch
 from imageencoder_tpu.models.image import decode_image, encode_image
 from imageencoder_tpu.utils.quant import QuantMatrix
+from tests.oracle import QUANT4
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 @pytest.fixture(scope="module")
@@ -74,3 +75,30 @@ def test_decode_batch_matches_single(quant):
     got = decode_image_batch(streams, backend="numpy", max_workers=4)
     for s, g in zip(streams, got):
         assert np.array_equal(g, decode_image(s, backend="numpy"))
+
+
+def test_header_hole_fits_every_legal_header():
+    """The batch pack reserves GAP_RECORDS records of split16 widths for
+    each image's header; the largest legal header (widest quant entries,
+    biggest dims, no-Huffman flag) fits, and the encoder refuses bigger."""
+    from imageencoder_tpu.models.batch import (GAP_RECORDS,
+                                               header_hole_bits)
+    from imageencoder_tpu.models.headers import write_image_header
+    from imageencoder_tpu.ops.bitpack import BitWriter
+
+    for b in (4, 8):
+        assert header_hole_bits(b) == GAP_RECORDS * (b * b + 2) * 16
+        w = BitWriter()
+        w.put_bit(0)
+        write_image_header(w, QuantMatrix(np.full((b, b), 65535)), True,
+                           65535, 65535)
+        assert w.position <= header_hole_bits(b)
+
+
+def test_header_hole_check_raises(monkeypatch):
+    from imageencoder_tpu.models import batch
+
+    monkeypatch.setattr(batch, "header_hole_bits", lambda b: 8)
+    with pytest.raises(ValueError, match="header hole"):
+        batch.encode_image_batch(np.zeros((1, 16, 16), np.uint8),
+                                 QuantMatrix(np.full((4, 4), 10)))

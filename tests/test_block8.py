@@ -8,11 +8,12 @@ import pytest
 from imageencoder_tpu.models.image import decode_image, encode_image
 from imageencoder_tpu.utils.metrics import psnr
 from imageencoder_tpu.utils.quant import QuantMatrix
+from tests.oracle import QUANT8
 
 
 @pytest.fixture(scope="module")
 def quant8():
-    return QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", size=8)
+    return QuantMatrix.from_file(QUANT8, size=8)
 
 
 @pytest.mark.parametrize("backend", ["numpy", "jax"])
@@ -67,7 +68,7 @@ def test_video_8x8_roundtrip(backend):
 
     w, h = 64, 64
     data, frames = make_video(w=w, h=h, n=6, seed=5)
-    quant = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", size=8)
+    quant = QuantMatrix.from_file(QUANT8, size=8)
     enc = encode_video(data, w, h, quant, True, 3, 16, use_huffman=True,
                        norm="ortho", backend=backend, block_size=8)
     dec, params, dims = decode_video(enc, norm="ortho", backend="numpy",
@@ -104,7 +105,7 @@ def test_video_8x8_sharded_step_matches():
     w, h = 64, 128
     data, _ = make_video(w=w, h=h, n=4, seed=9, smooth=False)
     frames = split_yuv420(data, w, h)
-    quant = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", size=8)
+    quant = QuantMatrix.from_file(QUANT8, size=8)
 
     mesh = make_mesh(8, frame_axis=4)
     step = make_sharded_video_packed(mesh, 4, 16, mvec_bits(16),
@@ -147,7 +148,7 @@ def test_video_8x8_sharded_stage2_huffman():
     w, h = 64, 128
     data, _ = make_video(w=w, h=h, n=4, seed=9, smooth=False)
     frames = split_yuv420(data, w, h)
-    quant = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", size=8)
+    quant = QuantMatrix.from_file(QUANT8, size=8)
 
     mesh = make_mesh(8, frame_axis=4)
     step = make_sharded_video_packed(mesh, 4, 16, mvec_bits(16),

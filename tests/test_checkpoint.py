@@ -13,8 +13,9 @@ from imageencoder_tpu.utils.checkpoint import encode_video_checkpointed
 from imageencoder_tpu.utils.quant import QuantMatrix
 
 from tests.test_video_parity import make_video
+from tests.oracle import QUANT4
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +125,7 @@ def test_malformed_segment_meta_detected(tmp_path, quant, video):
 
 def test_numerics_mismatch_rejected(tmp_path, quant, video):
     """Resuming with a different norm/backend must be rejected: those change
-    payload bits (ADVICE r1) and would splice stale numerics."""
+    payload bits and would splice stale numerics."""
     d = tmp_path / "ck7"
     encode_video_checkpointed(video, 64, 64, quant, True, 4, 16, str(d),
                               use_huffman=False, norm="reference")

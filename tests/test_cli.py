@@ -7,9 +7,10 @@ from imageencoder_tpu.cli import main
 from imageencoder_tpu.models.image import decode_image, encode_image
 from imageencoder_tpu.models.video import decode_video
 from imageencoder_tpu.utils.quant import QuantMatrix
+from tests.oracle import QUANT4, QUANT8
 
-MATRIX = "/root/reference/bin/matrix.txt"
-MATRIX8 = "/root/reference/bin/matrix8_1.txt"
+MATRIX = QUANT4
+MATRIX8 = QUANT8
 
 
 def write_conf(path, **kv):

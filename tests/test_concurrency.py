@@ -18,8 +18,9 @@ from imageencoder_tpu.models.video import decode_video, encode_video
 from imageencoder_tpu.utils.quant import QuantMatrix
 
 from tests.test_video_parity import make_video
+from tests.oracle import QUANT4
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 @pytest.fixture(scope="module")

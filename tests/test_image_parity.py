@@ -16,9 +16,9 @@ from imageencoder_tpu.models.image import decode_image, encode_image
 from imageencoder_tpu.utils.metrics import psnr
 from imageencoder_tpu.utils.quant import QuantMatrix
 
-from tests.oracle import FIXTURES, ReferenceCodec, fixture_image
+from tests.oracle import FIXTURES, QUANT4, ReferenceCodec, fixture_image
 
-QUANTFILE = str(FIXTURES / "matrix.txt")
+QUANTFILE = QUANT4
 
 
 def assert_fallback_byte_exact(ours: bytes, ref: bytes):

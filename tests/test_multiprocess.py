@@ -1,8 +1,9 @@
 """Multi-process GOP distribution: real worker processes encode disjoint
 GOP sets; the root assembles a stream byte-identical to a single-process
 encode.  (The transport here is a shared directory; parallel/distributed.py
-works with any transport — on TPU pods the segments ride DCN.)"""
+works with any transport, e.g. a network file system between hosts.)"""
 
+import pathlib
 import pickle
 import socket
 import subprocess
@@ -15,9 +16,11 @@ from imageencoder_tpu.models.video import encode_video
 from imageencoder_tpu.parallel.distributed import assemble
 from imageencoder_tpu.utils.quant import QuantMatrix
 
+from tests.oracle import QUANT4
 from tests.test_video_parity import make_video
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
+REPO = str(pathlib.Path(__file__).resolve().parent.parent)
 
 WORKER = r"""
 import pickle, sys
@@ -41,7 +44,7 @@ def test_two_worker_processes_assemble_identically(tmp_path):
     raw = tmp_path / "v.raw"
     raw.write_bytes(data)
     worker = tmp_path / "worker.py"
-    worker.write_text(WORKER.format(repo="/root/repo", matrix=MATRIX))
+    worker.write_text(WORKER.format(repo=REPO, matrix=MATRIX))
 
     n_hosts, n_gops = 2, 3
     procs = []
@@ -109,7 +112,7 @@ def test_jax_distributed_two_process_encode(tmp_path):
     raw = tmp_path / "v.raw"
     raw.write_bytes(data)
     worker = tmp_path / "worker.py"
-    worker.write_text(JD_WORKER.format(repo="/root/repo", matrix=MATRIX))
+    worker.write_text(JD_WORKER.format(repo=REPO, matrix=MATRIX))
     out = tmp_path / "rank0.bin"
 
     with socket.socket() as s:  # pick a free coordinator port

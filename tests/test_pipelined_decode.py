@@ -11,8 +11,9 @@ import imageencoder_tpu.models.image as image_mod
 from imageencoder_tpu.models.image import decode_image, encode_image
 from imageencoder_tpu.runtime.native import available
 from imageencoder_tpu.utils.quant import QuantMatrix
+from tests.oracle import QUANT4, QUANT8
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="native runtime not built")
@@ -55,7 +56,7 @@ def test_pipelined_small_and_flat(quant, monkeypatch):
 
 
 def test_pipelined_block8(monkeypatch):
-    q8 = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", 8)
+    q8 = QuantMatrix.from_file(QUANT8, 8)
     rng = np.random.default_rng(5)
     img = np.kron(rng.integers(0, 256, (16, 16)),
                   np.ones((8, 8))).astype(np.uint8)

@@ -11,8 +11,9 @@ import pytest
 
 from imageencoder_tpu import (QuantMatrix, decode_image, decode_video,
                               encode_image, encode_video)
+from tests.oracle import QUANT4
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 @pytest.fixture(scope="module")

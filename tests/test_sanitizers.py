@@ -1,4 +1,4 @@
-"""TSAN/ASAN gate for the native runtime's concurrency (VERDICT r3 #5).
+"""TSAN/ASAN gate for the native runtime's concurrency.
 
 Builds sanitizer-instrumented binaries of runtime.cpp + the pure-C++
 driver (tools/sanitize_drive.cpp) and runs them:

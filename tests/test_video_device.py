@@ -13,8 +13,9 @@ from imageencoder_tpu.ops.video_pipeline import _batched_motion
 from imageencoder_tpu.utils.quant import QuantMatrix
 
 from tests.test_video_parity import make_video
+from tests.oracle import QUANT4, QUANT8
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 @pytest.fixture(scope="module")
@@ -37,25 +38,62 @@ def test_batched_motion_matches_per_frame():
             pred_d[f], predict_image(frames[f - 1], mv_n, 64, 64))
 
 
-def test_wide_frame_sad_search_falls_back_to_scan(monkeypatch):
-    """Frames wider than 128 macroblocks (2048 px) exceed the Pallas
-    SAD-map kernel's lane layout: sad_motion_search must route them to
-    the lax.scan formulation instead of asserting (ADVICE r3)."""
-    from imageencoder_tpu.ops import video_pipeline as vp
+@pytest.mark.parametrize("f,h,w,merange,halo", [
+    (2, 32, 48, 4, 0),     # narrower than one column tile
+    (1, 48, 280, 3, 0),    # partial last tile, width not a multiple of 16
+    (3, 64, 64, 16, 0),    # the codec's default search range
+    (1, 16, 2176, 4, 0),   # 136 macroblock columns: wider than 2048 px
+    (2, 32, 160, 4, 2),    # halo rows short of the 3 merange 4 reads
+    (2, 32, 160, 4, 3),    # exactly the rows it reads
+    (2, 32, 160, 4, 4),    # more: the sharded step's merange-row halo
+])
+def test_sad_kernel_matches_scan(f, h, w, merange, halo):
+    """The Triton-route SAD-map kernel (interpret mode) is bit-equal to the
+    lax.scan maps, which in turn equal a direct numpy evaluation.  With
+    ``halo`` reference rows above and below the frame (a stripe's
+    neighbour rows), both read those rows and zeros only past them."""
+    from imageencoder_tpu.ops.sad_maps import sad_maps_scan, sad_maps_triton
+
+    rng = np.random.default_rng(h * w + merange + halo)
+    cur = rng.integers(0, 256, (f, h, w), dtype=np.uint8)
+    ref = rng.integers(0, 256, (f, h + 2 * halo, w), dtype=np.uint8)
+    scan = np.asarray(sad_maps_scan(jnp.asarray(cur), jnp.asarray(ref),
+                                    merange, halo))
+    kern = np.asarray(sad_maps_triton(jnp.asarray(cur), jnp.asarray(ref),
+                                      merange, halo, interpret=True))
+    np.testing.assert_array_equal(kern, scan)
+
+    # Reference rows -pad .. h + pad: the halo rows, zeros beyond them.
+    pad = merange - 1
+    d = 2 * pad + 1
+    nby, nbx = h // 16, w // 16
+    rows = np.zeros((f, h + 2 * max(pad, halo), w), np.int64)
+    rows[:, max(pad, halo) - halo:][:, :h + 2 * halo] = ref
+    rp = np.pad(rows[:, max(0, halo - pad):][:, :h + 2 * pad],
+                ((0, 0), (0, 0), (pad, pad)))
+    for dy, dx in [(0, 0), (d - 1, 0), (pad, d - 1), (d // 3, d // 2),
+                   (d - 1, d - 1)]:
+        diff = np.abs(cur.astype(np.int64) - rp[:, dy:dy + h, dx:dx + w])
+        want = diff[:, :nby * 16, :nbx * 16] \
+            .reshape(f, nby, 16, nbx, 16).sum(axis=(2, 4))
+        np.testing.assert_array_equal(scan[dy, dx], want)
+
+
+def test_wide_frame_sad_search_matches_host():
+    """Frames wider than 2048 px run the same SAD-map search; its vectors
+    and predictions equal the host search (ops/motion.py)."""
+    from imageencoder_tpu.ops.video_pipeline import sad_motion_search
 
     rng = np.random.default_rng(3)
-    h, w = 16, 2176  # 136 macroblock columns > 128
-    cur = jnp.asarray(rng.integers(0, 256, (2, h, w), dtype=np.uint8))
-    ref = jnp.asarray(rng.integers(0, 256, (2, h, w), dtype=np.uint8))
-
-    monkeypatch.setattr(vp, "_SAD_MAPS_MODE", "scan")
-    off_scan, pred_scan = vp.sad_motion_search(cur, ref, 4)
-    # "interpret" would run the Pallas kernel; the width guard must send
-    # this frame down the scan path (identical results, no assert).
-    monkeypatch.setattr(vp, "_SAD_MAPS_MODE", "interpret")
-    off_p, pred_p = vp.sad_motion_search(cur, ref, 4)
-    np.testing.assert_array_equal(np.asarray(off_scan), np.asarray(off_p))
-    np.testing.assert_array_equal(np.asarray(pred_scan), np.asarray(pred_p))
+    h, w = 32, 2176
+    base = rng.integers(0, 256, (h + 8, w + 8), dtype=np.uint8)
+    ref = base[None, 4:4 + h, 4:4 + w]
+    cur = base[None, 2:2 + h, 5:5 + w]
+    off, pred = sad_motion_search(jnp.asarray(cur), jnp.asarray(ref), 4)
+    mv_n, _ = find_motion(cur[0], ref[0], 4)
+    np.testing.assert_array_equal(np.asarray(off)[0], mv_n)
+    np.testing.assert_array_equal(np.asarray(pred)[0],
+                                  predict_image(ref[0], mv_n, h, w))
 
 
 def test_device_video_stream_decodes(quant):
@@ -156,7 +194,7 @@ def test_device_video_decode_chunked(quant):
 
 
 def test_device_video_decode_block8():
-    q8 = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", 8)
+    q8 = QuantMatrix.from_file(QUANT8, 8)
     data, _ = make_video(n=6, smooth=True, seed=9)
     enc = encode_video(data, 64, 64, q8, True, 3, 16, use_huffman=True,
                        block_size=8)
@@ -193,65 +231,3 @@ def test_long_video_gop_chunking_identical(quant):
     unchunked = words_to_bytes(words, int(total))
     assert chunked == unchunked
 
-
-def test_fused_video_locals_pack_matches_fields_path(quant):
-    """_encode_video_locals (fused front end + mvec register files +
-    merge-only packer, interpret mode) is bit-identical to the fields
-    path packed with pack_blocks_device, on the SAME Kronecker-form
-    coefficients (the kernel's numeric definition; test_pallas_encode.py
-    validates that form against the einsum path separately)."""
-    from imageencoder_tpu.models.video import mvec_bits
-    from imageencoder_tpu.ops.device_pack import (pack_blocks_device,
-                                                  packed_words_bound)
-    from imageencoder_tpu.ops.pipeline import fields_from_coeffs
-    from imageencoder_tpu.ops.video_pipeline import (_batched_motion_sadmap,
-                                                     _encode_video_locals)
-    from tests.test_pallas_encode import kron_coeffs
-
-    f, h, w, gop, merange = 5, 64, 64, 2, 8
-    data, frames_list = make_video(w=w, h=h, n=f, seed=31, smooth=False)
-    frames = jnp.asarray(np.stack(frames_list))
-    is_i = np.array([fi % gop == 0 for fi in range(f)])
-    mvec, pred = _batched_motion_sadmap(frames, merange)
-    x = jnp.where(jnp.asarray(is_i)[:, None, None],
-                  frames.astype(jnp.float32),
-                  frames.astype(jnp.float32) - pred.astype(jnp.float32))
-    nb = mvec_bits(merange)
-    k = 16
-    n_micro = (h // 4) * (w // 4)
-    n_macro = (h // 16) * (w // 16)
-    n_rows = f * (n_macro + n_micro)
-    n_words = packed_words_bound(n_rows, k + 2)
-    start_bit = 50
-
-    got_words, got_total = _encode_video_locals(
-        x.reshape(f * h, w), mvec, jnp.asarray(is_i),
-        jnp.asarray(quant.as_float(np.float32)), f, nb, 4, True,
-        "reference", jnp.asarray(start_bit, jnp.int32), n_words,
-        interpret=True)
-
-    # Expected: same coefficients through the fields path.
-    # kron_coeffs applies the shared -128 bias itself (blockify_columns),
-    # so it takes x (pixels for I rows, residual for P rows) directly.
-    cz = kron_coeffs(np.asarray(x).reshape(f * h, w),
-                     quant.as_float(np.float32), 4, "reference")
-    bvals, bnbits = fields_from_coeffs(cz, True)
-    bvals = bvals.reshape(f, n_micro, k + 2)
-    bnbits = bnbits.reshape(f, n_micro, k + 2)
-    mask = (1 << nb) - 1
-    mvals = np.zeros((f, n_macro, k + 2), np.int32)
-    mnbits = np.zeros((f, n_macro, k + 2), np.int32)
-    mvals[:, :, 0] = np.asarray(mvec)[:, :, 0] & mask
-    mvals[:, :, 1] = np.asarray(mvec)[:, :, 1] & mask
-    mnbits[:, :, :2] = nb
-    mnbits[is_i] = 0
-    vals = np.concatenate([mvals, np.asarray(bvals)], axis=1).reshape(-1, k + 2)
-    nbits = np.concatenate([mnbits, np.asarray(bnbits)], axis=1).reshape(-1, k + 2)
-    want_words, want_total = pack_blocks_device(
-        jnp.asarray(vals), jnp.asarray(nbits),
-        jnp.asarray(start_bit, jnp.int32), n_words)
-
-    assert int(got_total) == int(want_total)
-    nw = (int(want_total) + 31) // 32
-    np.testing.assert_array_equal(np.asarray(got_words)[:nw],
-                                  np.asarray(want_words)[:nw])

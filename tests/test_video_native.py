@@ -11,8 +11,9 @@ from imageencoder_tpu.runtime.native import available
 from imageencoder_tpu.utils.quant import QuantMatrix
 
 from tests.test_video_parity import make_video
+from tests.oracle import QUANT4, QUANT8
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="native runtime not built")
@@ -51,7 +52,7 @@ def test_native_video_encode_bit_identical(quant, monkeypatch, ref_mode,
 
 
 def test_native_video_encode_block8(monkeypatch):
-    q8 = QuantMatrix.from_file("/root/reference/bin/matrix8_1.txt", 8)
+    q8 = QuantMatrix.from_file(QUANT8, 8)
     data, _ = make_video(n=6, seed=3, smooth=True)
     native = encode_video(data, 64, 64, q8, True, 3, 16, use_huffman=False,
                           block_size=8)

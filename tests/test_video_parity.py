@@ -18,9 +18,9 @@ from imageencoder_tpu.models.video import decode_video, encode_video
 from imageencoder_tpu.ops.huffman import huffman_decode
 from imageencoder_tpu.utils.quant import QuantMatrix
 
-from tests.oracle import ReferenceCodec
+from tests.oracle import QUANT4, ReferenceCodec
 
-MATRIX = "/root/reference/bin/matrix.txt"
+MATRIX = QUANT4
 
 
 def make_video(w=64, h=64, n=8, seed=0, smooth=True, noise=0.0):
@@ -183,7 +183,7 @@ def test_video_rle_off_roundtrip(quant, ref):
 def test_gop1_non_macro_dims_roundtrip(quant):
     """gop == 1 emits no P-frames, so %4-but-not-%16 dims are legal (the
     reference encodes/decodes them correctly in the all-I case; the guard
-    only rejects dims when P-frames would desync — ADVICE r1)."""
+    only rejects dims when P-frames would desync)."""
     w, h = 24, 20  # multiples of 4, not of 16
     video, frames = make_video(w=w, h=h, n=3, seed=21, smooth=False)
     enc = encode_video(video, w, h, quant, True, 1, 16, use_huffman=False)
@@ -199,8 +199,7 @@ def test_gop1_non_macro_dims_roundtrip(quant):
 
 
 def test_gop1_non_macro_dims_reference_decode(quant, ref):
-    """Cross-decoder validation of the gop==1 non-macro-dims allowance
-    (ADVICE r2): the REFERENCE decoder must read our 24x20 all-I stream
+    """Cross-decoder validation of the gop==1 non-macro-dims allowance: the REFERENCE decoder must read our 24x20 all-I stream
     and produce exactly the bytes our own decoder produces — otherwise
     the relaxed dimension guard would hide a wire incompatibility."""
     w, h = 24, 20

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from imageencoder_tpu.runtime.native import walk_offsets_native
+from tests.oracle import QUANT4
 
 
 def _ref_walk(packed: bytes, start_bit: int, n_blocks: int, use_rle: bool,
@@ -152,7 +153,7 @@ def test_walk_speculative_natural_stream():
     img = np.clip(
         np.kron(rng.integers(0, 256, (75, 128)), np.ones((8, 8)))
         + rng.normal(0, 6, (600, 1024)), 0, 255).astype(np.uint8)
-    quant = QuantMatrix.from_file("/root/reference/bin/matrix.txt")
+    quant = QuantMatrix.from_file(QUANT4)
     enc = encode_image(img, quant, use_rle=True, use_huffman=False,
                        backend="numpy")
     r = BitReader(enc[:65536], position=1)

@@ -42,7 +42,7 @@ REF_BIN = "/root/reference/bin"
 
 
 def synth_image(seed: int = 0) -> np.ndarray:
-    """Blocky base + gaussian noise (the docs/PERFORMANCE.md recipe): a
+    """Blocky base + gaussian noise: a
     mid-complexity photographic stand-in that compresses to ~45% with
     matrix.txt — HARDER than ex5's published ~34%/29% ratios."""
     rng = np.random.default_rng(seed)
@@ -112,7 +112,7 @@ def main() -> int:
 
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # host paths only; no TPU
+    jax.config.update("jax_platforms", "cpu")  # host paths only; no device
     from imageencoder_tpu.models.image import decode_image, encode_image
     from imageencoder_tpu.utils.quant import QuantMatrix
 
